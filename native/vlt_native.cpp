@@ -1,7 +1,7 @@
 // Native host runtime: parallel BGZF decompression + BAM record scanning.
 //
 // The reference links htslib for BAM/BCF decode (Cargo.toml:65); at pod scale
-// the host-side decode must keep TPU chips fed (SURVEY.md §7.3), so the hot
+// the host-side decode must keep the device fed (SURVEY.md §7.3), so the hot
 // byte-level work lives here: multi-threaded BGZF block inflation and a
 // single-pass BAM record scanner emitting a columnar index (offset, tid, pos,
 // end_pos, flag, mapq) that Python queries with numpy searchsorted.

@@ -4,12 +4,13 @@ stages across both the dispatch thread and the drain thread.
 
 Usage: python scripts/_call_stage_profile.py [N] [--batch B] [--runs R]
 """
+import os
 import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/scripts")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
 
 from profile_call import ensure_obs  # noqa: E402
 

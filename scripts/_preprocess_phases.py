@@ -1,4 +1,5 @@
 """Clean phase timers for the realistic preprocess bench (no cProfile)."""
+import os
 import sys
 import time
 from pathlib import Path
@@ -6,8 +7,8 @@ from pathlib import Path
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/scripts")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
 
 import numpy as np  # noqa: E402
 

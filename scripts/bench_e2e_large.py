@@ -1,189 +1,42 @@
 #!/usr/bin/env python
-"""Large-scale end-to-end witness (VERDICT r4 item 7): a >=100K-candidate
-two-sample pipeline over REAL simulated libraries with PLANTED somatics.
+"""Large-scale end-to-end witness: a >=100K-candidate two-sample pipeline
+over simulated libraries with PLANTED germline and somatic SNVs and indels.
 
-World: an 8 Mb synthetic diploid contig; both samples share ~2,000 germline
-het SNVs (haplotype 1); the tumor additionally carries ~1,000 somatic SNVs
-(haplotype 1, expected VAF 0.5).  30x paired-end libraries are simulated per
-sample (0.3% base error), written with our BamWriter (+BAI), and the full
-production pipeline runs: alignment-property estimation -> preprocess
-(4 workers/sample) -> tumor-normal columnar call (TPU when available) ->
-somatic + germline FDR.  Somatic `fdr_kept` MUST be > 0 (the planted truth),
-and planted-site sensitivity is reported.
+World (varlociraptor_tpu/simworld.py): an 8 Mb synthetic contig; both
+samples share the germline variants (haplotype 1); the tumor additionally
+carries the somatic ones. 30x paired-end libraries per sample, written as
+indexed BAMs; then the production pipeline runs: alignment-property
+estimation -> preprocess (W workers/sample) -> tumor-normal columnar call
+-> somatic + germline FDR. Somatic `fdr_kept` MUST be > 0 (the planted
+truth), and planted-site sensitivity is reported.
 
-Artifacts cache under /tmp/vlt_e2e_large (simulation is one-time ~3 min).
+The world is simulated anew under <checkout>/.e2e_large on every run.
 
-Usage: python scripts/bench_e2e_large.py [N_CANDIDATES] [--workers W] [--json]
+Usage: python scripts/bench_e2e_large.py [N_CANDIDATES] [--workers W]
 """
 
 import json
+import shutil
 import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-import numpy as np  # noqa: E402
-
-CACHE = Path("/tmp/vlt_e2e_large")
-CONTIG = "sim1"
-GLEN = 8_000_000
-COVERAGE = 30.0
-READ_LEN = 100
-N_GERMLINE = 2000
-N_SOMATIC = 1000
-BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+WORK = ROOT / ".e2e_large"
 
 
-def _plant(rng, ref, positions):
-    alt = ref.copy()
-    for p in positions:
-        choices = BASES[BASES != ref[p]]
-        alt[p] = rng.choice(choices)
-    return alt
+def world_config(n_candidates):
+    from varlociraptor_tpu.simworld import WorldConfig
 
-
-def _simulate_sample(out_path, haps, rng):
-    """30x paired-end library; each fragment samples one haplotype."""
-    from varlociraptor_tpu.io.bam import BamRecord, BamWriter
-
-    n_pairs = int(GLEN * COVERAGE / (2 * READ_LEN))
-    max_start = GLEN - 600
-    fstarts = np.sort(rng.integers(0, max_start, size=n_pairs))
-    isizes = np.clip(
-        rng.normal(350.0, 50.0, size=n_pairs), 2 * READ_LEN + 10, 590
-    ).astype(np.int64)
-    hsel = rng.integers(0, 2, size=n_pairs)
-    # flat read table (2 per pair), then ONE global coordinate sort so the
-    # BAM streams out sorted (BAI build requires it)
-    p1 = fstarts
-    p2 = fstarts + isizes - READ_LEN
-    pos = np.empty(2 * n_pairs, dtype=np.int64)
-    pos[0::2], pos[1::2] = p1, p2
-    first = np.zeros(2 * n_pairs, dtype=bool)
-    first[0::2] = True
-    pair_id = np.repeat(np.arange(n_pairs), 2)
-    nerr = rng.binomial(READ_LEN, 0.003, size=2 * n_pairs)
-    err_off = np.concatenate(([0], np.cumsum(nerr)))
-    err_pos = rng.integers(0, READ_LEN, size=int(err_off[-1]))
-    err_base = rng.choice(BASES, size=int(err_off[-1]))
-    qual_pool = np.clip(
-        rng.normal(36, 3, size=(256, READ_LEN)), 10, 41
-    ).astype(np.uint8)
-    order = np.argsort(pos, kind="stable")
-    w = BamWriter(out_path, [CONTIG], [GLEN])
-    for i in order.tolist():
-        k = int(pair_id[i])
-        fi = bool(first[i])
-        p = int(pos[i])
-        seq = haps[hsel[k]][p : p + READ_LEN].copy()
-        for j in range(int(err_off[i]), int(err_off[i + 1])):
-            seq[err_pos[j]] = err_base[j]
-        reverse = not fi
-        flag = 0x1 | 0x2 | (0x10 if reverse else 0x20)
-        flag |= 0x40 if fi else 0x80
-        w.write_record(
-            BamRecord(
-                qname=f"frag{k}", flag=flag, tid=0, pos=p, mapq=60,
-                cigar=[(0, READ_LEN)], mtid=0,
-                mpos=int(p2[k]) if fi else int(p1[k]),
-                tlen=int(isizes[k]) if fi else -int(isizes[k]),
-                seq=np.ascontiguousarray(seq),
-                qual=qual_pool[k % 256],
-                tags={},
-            )
-        )
-    w.close(index=True)
-
-
-def ensure_world():
-    """Simulate (or reuse) the reference + both libraries + truth sets."""
-    CACHE.mkdir(exist_ok=True)
-    marker = CACHE / "world.json"
-    if marker.exists():
-        return json.loads(marker.read_text())
-    rng = np.random.default_rng(20260820)
-    ref = rng.choice(BASES, size=GLEN)
-    positions = rng.choice(
-        np.arange(500, GLEN - 500), size=N_GERMLINE + N_SOMATIC, replace=False
+    return WorldConfig(
+        length=8_000_000, germline_snvs=2000, somatic_snvs=1000,
+        germline_indels=600, somatic_indels=400, n_candidates=n_candidates,
     )
-    positions.sort()
-    sel = rng.permutation(len(positions))
-    germ_pos = np.sort(positions[sel[:N_GERMLINE]])
-    som_pos = np.sort(positions[sel[N_GERMLINE:]])
-
-    h1_germ = _plant(rng, ref, germ_pos)
-    h1_tumor = _plant(rng, h1_germ, som_pos)
-
-    fa = CACHE / "ref.fa"
-    with open(fa, "w") as f:
-        print(f">{CONTIG}", file=f)
-        s = ref.tobytes().decode("latin1")
-        for i in range(0, GLEN, 80):
-            print(s[i : i + 80], file=f)
-
-    t0 = time.perf_counter()
-    _simulate_sample(CACHE / "normal.bam", (ref, h1_germ), rng)
-    _simulate_sample(CACHE / "tumor.bam", (ref, h1_tumor), rng)
-    sim_s = time.perf_counter() - t0
-
-    world = {
-        "fa": str(fa),
-        "normal": str(CACHE / "normal.bam"),
-        "tumor": str(CACHE / "tumor.bam"),
-        "germ_pos": [int(p) for p in germ_pos],
-        "som_pos": [int(p) for p in som_pos],
-        "germ_alt": [chr(h1_germ[p]) for p in germ_pos],
-        "som_alt": [chr(h1_tumor[p]) for p in som_pos],
-        "sim_s": round(sim_s, 1),
-    }
-    marker.write_text(json.dumps(world))
-    return world
-
-
-def make_candidates(world, n, path):
-    """All planted sites + evenly spaced background SNVs, position-sorted."""
-    ref = np.frombuffer(
-        b"".join(
-            l.encode() for l in Path(world["fa"]).read_text().splitlines()[1:]
-        ),
-        dtype=np.uint8,
-    )
-    alt_of = {"A": "G", "C": "T", "G": "A", "T": "C"}
-    planted = {int(p): a for p, a in zip(world["germ_pos"], world["germ_alt"])}
-    planted.update(
-        {int(p): a for p, a in zip(world["som_pos"], world["som_alt"])}
-    )
-    n_bg = max(0, n - len(planted))
-    bg_step = max(1, (GLEN - 1000) // max(n_bg, 1))
-    rows = []
-    for p, a in planted.items():
-        rows.append((p, chr(ref[p]), a))
-    pos = 500
-    added = 0
-    while added < n_bg and pos < GLEN - 500:
-        if pos not in planted:
-            rb = chr(ref[pos])
-            if rb in alt_of:
-                rows.append((pos, rb, alt_of[rb]))
-                added += 1
-        pos += bg_step
-    rows.sort()
-    with open(path, "w") as f:
-        f.write(
-            "##fileformat=VCFv4.2\n"
-            f"##contig=<ID={CONTIG},length={GLEN}>\n"
-            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n"
-        )
-        for p, rb, a in rows:
-            f.write(f"{CONTIG}\t{p + 1}\t.\t{rb}\t{a}\t.\t.\t.\n")
-    return len(rows)
 
 
 def run(n_candidates: int = 100_000, workers: int = 4):
-    import tempfile
-
     from varlociraptor_tpu.calling.call import CallOptions, call_generic
     from varlociraptor_tpu.calling.preprocess import (
         PreprocessOptions,
@@ -195,11 +48,14 @@ def run(n_candidates: int = 100_000, workers: int = 4):
     from varlociraptor_tpu.io.bam import BamReader
     from varlociraptor_tpu.io.fasta import FastaBuffer
     from varlociraptor_tpu.io.vcf import VcfReader
+    from varlociraptor_tpu.simworld import simulate_world, write_candidates
 
-    world = ensure_world()
-    tmp = Path(tempfile.mkdtemp(prefix="vlt-e2e-large-"))
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    world = simulate_world(WORK / "world", world_config(n_candidates))
+    tmp = WORK
     cand = tmp / "candidates.vcf"
-    n = make_candidates(world, n_candidates, cand)
+    n = write_candidates(cand, world)
 
     t0 = time.perf_counter()
     props = estimate(
@@ -247,10 +103,11 @@ def run(n_candidates: int = 100_000, workers: int = 4):
     assert kept_somatic > 0, "planted somatics were not kept by somatic FDR"
     assert kept_germline > 0, "planted germlines were not kept"
 
-    som_truth = {int(p) + 1 for p in world["som_pos"]}
+    som_truth = {v["pos"] for v in world["planted"] if v["somatic"]}
     kept_at_truth = sum(
-        1 for r in VcfReader(filtered).records() if r.pos + 1 in som_truth
+        1 for r in VcfReader(filtered).records() if r.pos in som_truth
     )
+    shutil.rmtree(WORK)
     return {
         "n_loci": n,
         "preprocess_s": round(t1 - t0, 2),
@@ -267,6 +124,7 @@ def run(n_candidates: int = 100_000, workers: int = 4):
         "somatic_sensitivity": round(kept_at_truth / len(som_truth), 4),
         "n_planted_somatic": len(som_truth),
         "workers": workers,
+        "world_setup_s": round(world["seconds"], 2),
     }
 
 

@@ -24,7 +24,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Measured CPU baseline for bench.py's vs_baseline: the SAME posterior
-engine and the SAME synthetic locus batch as the TPU headline metric, run on
+engine and the SAME synthetic locus batch as the GPU headline metric, run on
 the XLA CPU backend of this host (all cores).  Prints one float: loci/s.
 
 This replaces the round-1/2 nominal 1000 loci/s with a number that has
@@ -9,6 +9,7 @@ figures and cannot be built in this image (no Rust toolchain), so the
 sanctioned stand-in is the repo's own CPU path on identical inputs.
 """
 
+import os
 import sys
 import time
 
@@ -16,7 +17,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():

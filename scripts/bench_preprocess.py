@@ -10,6 +10,7 @@ realignment -> observation write).  Usage:
 
 import cProfile
 import pstats
+import os
 import sys
 import tempfile
 import time
@@ -19,7 +20,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from varlociraptor_tpu.utils.jaxcache import enable as _exc  # noqa: E402
 

@@ -20,6 +20,7 @@ version drift, not necessarily bugs.
 """
 
 import math
+import os
 import sys
 import tempfile
 from pathlib import Path
@@ -28,7 +29,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from decode_ref_obs import decode_record_obs  # noqa: E402
 

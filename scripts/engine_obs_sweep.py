@@ -23,6 +23,7 @@ Writes /tmp/engine_obs_sweep.json.
 """
 
 import json
+import os
 import sys
 import tempfile
 from pathlib import Path
@@ -31,7 +32,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from varlociraptor_tpu.calling.observations import ObservationWriter  # noqa: E402
 from varlociraptor_tpu.calling.ref_obs import (  # noqa: E402

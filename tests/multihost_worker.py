@@ -24,7 +24,7 @@ jax.distributed.initialize(
 
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from varlociraptor_tpu.bench_utils import (  # noqa: E402
     engine_inputs,

@@ -16,7 +16,7 @@ RES = Path("/root/reference/tests/resources")
 def _extract(monkeypatch, fast: bool, tmp_path, n=400):
     import sys
 
-    sys.path.insert(0, "/root/repo/scripts")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
     from bench_preprocess import make_candidates
 
     from varlociraptor_tpu.calling.preprocess import (

@@ -1,9 +1,12 @@
-"""Pallas column-recurrence pair-HMM kernel (ops/pallas_pairhmm.py) vs the
-general anti-diagonal wavefront kernel, in interpreter mode (no TPU in CI).
+"""GPU pair-HMM kernel (ops/pallas_pairhmm.py) vs the XLA anti-diagonal
+wavefront, in Pallas interpret mode on the CPU.
 
-The zero-extension model (reference GapParams defaults) collapses the
-three-state semiglobal DP to a single-state column recurrence; this asserts
-the collapse is exact (up to f32) against the independent log-space kernel.
+Both gap models go through the one kernel: zero extensions (the reference
+defaults) and finite extensions (BAM-estimated properties, Kogge-Stone D
+scan). Tolerance: kernel and wavefront are both log-space f32 but sum in
+different orders (column walk vs anti-diagonals); 5e-4 relative (to
+max(1, |ref|)) covers f32 rounding over ~400-step recurrences and is far
+below the log-prob gaps that separate alleles.
 """
 
 import math
@@ -13,11 +16,22 @@ import numpy as np
 import pytest
 
 from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_impl
-from varlociraptor_tpu.ops.pallas_pairhmm import pallas_exact_forward
+from varlociraptor_tpu.ops.pallas_pairhmm import (
+    coefficients,
+    ks_steps,
+    pack_batch,
+    pallas_forward,
+    tile_items,
+)
 
 GAP = np.array(
     [math.log(2.8e-6), math.log(5.1e-6), NEG_INF, NEG_INF], dtype=np.float32
 )
+GAP_ONT = np.array(
+    [math.log(5.1e-3), math.log(4.2e-3), math.log(0.35), math.log(0.42)],
+    dtype=np.float32,
+)
+TOL = 5e-4
 
 
 def _synth(n=21, seed=3):
@@ -49,11 +63,8 @@ def _synth(n=21, seed=3):
     return alleles, reads, quals
 
 
-def test_pallas_matches_wavefront_interpret():
+def _wavefront(alleles, reads, quals, gap):
     import jax.numpy as jnp
-
-    alleles, reads, quals = _synth()
-    out_pl = pallas_exact_forward(alleles, reads, quals, GAP, interpret=True)
 
     B = 32
     X = ((max(len(a) for a in alleles) + 31) // 32) * 32
@@ -72,80 +83,6 @@ def test_pallas_matches_wavefront_interpret():
         rlen[b] = len(r)
         mis[b, : len(r)] = -quals[b].astype(np.float64) * math.log(10) / 10
     me = np.full(B, -1, np.int32)
-    out_ref = np.asarray(
-        _forward_impl(
-            jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd),
-            jnp.asarray(mis), jnp.asarray(rlen), jnp.asarray(GAP),
-            jnp.asarray(me), X, Y,
-        )
-    )[: len(alleles)]
-    rel = np.abs(out_pl - out_ref) / np.maximum(np.abs(out_ref), 1.0)
-    assert float(rel.max()) < 5e-4, rel.max()
-
-
-def test_pallas_empty_read_masked():
-    """A zero-length read window must return -1e30 (the wavefront's empty
-    result), not a bogus positive log-prob from the forced pad column."""
-    alleles = [b"ACGTACGTAC", b"ACGTACGTAC"]
-    reads = [np.zeros(0, dtype=np.uint8), np.frombuffer(b"ACGT", np.uint8)]
-    quals = [np.zeros(0, dtype=np.uint8), np.full(4, 30, np.uint8)]
-    out = pallas_exact_forward(alleles, reads, quals, GAP, interpret=True)
-    assert out[0] == -1e30
-    # ACGT matches at 2 start positions -> ~log(2*(1-1e-3)^4) (semiglobal
-    # forward sums over free starts; normalization cancels in ref/alt)
-    assert abs(out[1] - math.log(2.0)) < 0.05
-
-
-# --------------------------------------------------------------------------
-# General finite-extension kernel
-# --------------------------------------------------------------------------
-
-GAP_ONT = np.array(
-    [math.log(5.1e-3), math.log(4.2e-3), math.log(0.35), math.log(0.42)],
-    dtype=np.float32,
-)
-
-
-def _wavefront(alleles, reads, quals, gap, io=None, ie=None, do=None, de=None):
-    import jax.numpy as jnp
-
-    from varlociraptor_tpu.ops.pairhmm import _forward_hp_impl
-
-    B = 32
-    X = ((max(len(a) for a in alleles) + 31) // 32) * 32
-    Y = ((max(len(r) for r in reads) + 31) // 32) * 32
-    al = np.zeros((B, X), np.uint8)
-    alen = np.ones(B, np.int32)
-    rd = np.zeros((B, Y), np.uint8)
-    rlen = np.ones(B, np.int32)
-    mis = np.full((B, Y), NEG_INF, np.float32)
-    for b in range(len(alleles)):
-        a = np.frombuffer(alleles[b], np.uint8)
-        al[b, : len(a)] = a
-        alen[b] = len(a)
-        r = reads[b]
-        rd[b, : len(r)] = r
-        rlen[b] = len(r)
-        mis[b, : len(r)] = -quals[b].astype(np.float64) * math.log(10) / 10
-    me = np.full(B, -1, np.int32)
-    if io is not None:
-        io_p = np.full((B, Y), NEG_INF, np.float32)
-        ie_p = np.full((B, Y), NEG_INF, np.float32)
-        do_p = np.full((B, X), NEG_INF, np.float32)
-        de_p = np.full((B, X), NEG_INF, np.float32)
-        for b in range(len(alleles)):
-            io_p[b, : len(io[b])] = io[b]
-            ie_p[b, : len(ie[b])] = ie[b]
-            do_p[b, : len(do[b])] = do[b]
-            de_p[b, : len(de[b])] = de[b]
-        return np.asarray(
-            _forward_hp_impl(
-                jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd),
-                jnp.asarray(mis), jnp.asarray(rlen), jnp.asarray(io_p),
-                jnp.asarray(ie_p), jnp.asarray(do_p), jnp.asarray(de_p),
-                jnp.asarray(me), X, Y,
-            )
-        )[: len(alleles)]
     return np.asarray(
         _forward_impl(
             jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd),
@@ -155,68 +92,144 @@ def _wavefront(alleles, reads, quals, gap, io=None, ie=None, do=None, de=None):
     )[: len(alleles)]
 
 
-def test_pallas_general_matches_wavefront():
-    """Finite-extension column kernel (Kogge-Stone D scan) vs the log-space
-    wavefront, ONT-like gap params."""
-    from varlociraptor_tpu.ops.pallas_pairhmm import pallas_general_forward
+def _rel(out, ref):
+    return float(np.max(np.abs(out - ref) / np.maximum(np.abs(ref), 1.0)))
 
+
+def test_kernel_exact_matches_wavefront_interpret():
+    """Zero extensions: the scan is skipped and D/I have no self-loop."""
+    alleles, reads, quals = _synth()
+    out = pallas_forward(alleles, reads, quals, GAP, interpret=True)
+    assert _rel(out, _wavefront(alleles, reads, quals, GAP)) < TOL
+
+
+def test_kernel_empty_read_masked():
+    """A zero-length read window must return -1e30 (the wavefront's empty
+    result), not a bogus positive log-prob from the forced pad column."""
+    alleles = [b"ACGTACGTAC", b"ACGTACGTAC"]
+    reads = [np.zeros(0, dtype=np.uint8), np.frombuffer(b"ACGT", np.uint8)]
+    quals = [np.zeros(0, dtype=np.uint8), np.full(4, 30, np.uint8)]
+    out = pallas_forward(alleles, reads, quals, GAP, interpret=True)
+    assert out[0] == -1e30
+    # ACGT matches at 2 start positions -> ~log(2*(1-1e-3)^4) (semiglobal
+    # forward sums over free starts; normalization cancels in ref/alt)
+    assert abs(out[1] - math.log(2.0)) < 0.05
+
+
+def test_kernel_general_matches_wavefront():
+    """Finite extensions (Kogge-Stone D scan) vs the log-space wavefront,
+    ONT-like gap params."""
     alleles, reads, quals = _synth(n=21, seed=11)
-    out_pl = pallas_general_forward(alleles, reads, quals, GAP_ONT,
-                                    interpret=True)
-    out_ref = _wavefront(alleles, reads, quals, GAP_ONT)
-    rel = np.abs(out_pl - out_ref) / np.maximum(np.abs(out_ref), 1.0)
-    assert float(rel.max()) < 5e-4, rel.max()
+    out = pallas_forward(alleles, reads, quals, GAP_ONT, interpret=True)
+    assert _rel(out, _wavefront(alleles, reads, quals, GAP_ONT)) < TOL
 
 
-def test_pallas_general_long_deletion_chain():
+def test_kernel_general_long_deletion_chain():
     """A read bridging a long deletion exercises deep D-extension chains
     (the log-shift scan's far terms)."""
-    from varlociraptor_tpu.ops.pallas_pairhmm import pallas_general_forward
-
     random.seed(5)
     bases = b"ACGT"
     a = bytes(random.choice(bases) for _ in range(200))
     # read = 30 bp prefix + 30 bp starting 80 bp later (50 bp deletion)
     r = np.frombuffer(a[10:40] + a[90:120], np.uint8)
     q = np.full(60, 25, np.uint8)
-    out_pl = pallas_general_forward([a], [r], [q], GAP_ONT, interpret=True)
-    out_ref = _wavefront([a], [r.copy()], [q], GAP_ONT)
-    rel = abs(out_pl[0] - out_ref[0]) / max(abs(out_ref[0]), 1.0)
-    assert rel < 5e-4, (out_pl[0], out_ref[0])
+    out = pallas_forward([a], [r], [q], GAP_ONT, interpret=True)
+    ref = _wavefront([a], [r.copy()], [q], GAP_ONT)
+    assert _rel(out, ref) < TOL, (out[0], ref[0])
 
 
-def test_pallas_positional_matches_hp_wavefront():
-    """Positional-gap variant (per-base homopolymer probs) vs
-    _forward_hp_impl."""
-    from varlociraptor_tpu.ops.pallas_pairhmm import pallas_positional_forward
+@pytest.mark.parametrize(
+    "alens,rlens,xp,yp",
+    [
+        ([40, 300], [30, 100], 512, 128),
+        ([10], [1], 32, 32),
+        ([129] * 70, [150] * 70, 256, 256),
+    ],
+)
+def test_pack_batch_pads_to_block_shapes(alens, rlens, xp, yp):
+    """Ragged batches pad to power-of-two Xp/Yp and a power-of-two number
+    of TB-item tiles; lengths and bytes land in their own rows."""
+    rng = np.random.default_rng(0)
+    alleles = [bytes(rng.choice(list(b"ACGT"), n).astype(np.uint8)) for n in alens]
+    reads = [rng.choice(list(b"ACGT"), n).astype(np.uint8) for n in rlens]
+    quals = [np.full(n, 30, np.uint8) for n in rlens]
+    (allele, read, qual, alen, rlen), n = pack_batch(alleles, reads, quals)
+    tb = tile_items(xp)
+    assert allele.shape[1] == xp and read.shape[1] == yp == qual.shape[1]
+    B = allele.shape[0]
+    assert B % tb == 0 and (B // tb) & (B // tb - 1) == 0 and B >= n
+    assert n == len(alens)
+    np.testing.assert_array_equal(alen[:n], alens)
+    np.testing.assert_array_equal(rlen[:n], rlens)
+    assert (alen[n:] == 0).all() and (rlen[n:] == 1).all()
+    for k in range(n):
+        assert bytes(allele[k, : alens[k]]) == alleles[k]
+        assert not allele[k, alens[k]:].any()
+        np.testing.assert_array_equal(read[k, : rlens[k]], reads[k])
 
-    alleles, reads, quals = _synth(n=13, seed=7)
-    random.seed(19)
-    io, ie, do, de = [], [], [], []
-    for a, r in zip(alleles, reads):
-        io.append(np.float32(np.log(
-            np.random.default_rng(1).uniform(1e-4, 2e-2, len(r))
-        )) if len(r) else np.zeros(0, np.float32))
-        ie.append(np.float32(np.log(
-            np.random.default_rng(2).uniform(0.05, 0.5, len(r))
-        )) if len(r) else np.zeros(0, np.float32))
-        do.append(np.float32(np.log(
-            np.random.default_rng(3).uniform(1e-4, 2e-2, len(a))
-        )))
-        de.append(np.float32(np.log(
-            np.random.default_rng(4).uniform(0.05, 0.5, len(a))
-        )))
-    keep = [i for i in range(len(reads)) if len(reads[i]) > 0]
-    alleles = [alleles[i] for i in keep]
-    reads = [reads[i] for i in keep]
-    quals = [quals[i] for i in keep]
-    io = [io[i] for i in keep]
-    ie = [ie[i] for i in keep]
-    do = [do[i] for i in keep]
-    de = [de[i] for i in keep]
-    out_pl = pallas_positional_forward(
-        alleles, reads, quals, io, ie, do, de, interpret=True
+
+def test_ks_steps_and_coefficients():
+    """Zero extensions need no scan and give the NEG_INF floor; finite
+    ones scan log2(Xp) doubling steps, so a deletion chain spans the
+    column. Coefficients are the wavefront's log transition probs."""
+    c0 = coefficients(GAP)
+    assert c0[5] == NEG_INF and c0[6] == NEG_INF
+    assert c0[1] == 0.0 and c0[2] == 0.0  # t_dm = t_im = 1
+    assert ks_steps(c0[6] > NEG_INF / 2, 256) == 0
+    c1 = coefficients(GAP_ONT)
+    np.testing.assert_allclose(c1[3:7], GAP_ONT, rtol=1e-6)
+    np.testing.assert_allclose(
+        c1[0], math.log(1 - math.exp(GAP_ONT[0]) - math.exp(GAP_ONT[1])),
+        rtol=1e-6,
     )
-    out_ref = _wavefront(alleles, reads, quals, None, io, ie, do, de)
-    rel = np.abs(out_pl - out_ref) / np.maximum(np.abs(out_ref), 1.0)
-    assert float(rel.max()) < 5e-4, rel.max()
+    assert ks_steps(c1[6] > NEG_INF / 2, 256) == 8
+    assert ks_steps(True, 512) == 9
+    assert ks_steps(True, 32) == 5
+
+
+@pytest.mark.parametrize("n_ks", [0, 8])
+def test_kernel_lowers_for_cuda(n_ks):
+    """The kernel lowers through Pallas's Triton route for CUDA without a
+    card (lowering only; Triton compiles it to PTX on the GPU host)."""
+    import jax
+    import jax.numpy as jnp
+
+    from varlociraptor_tpu.ops import pallas_pairhmm as P
+
+    B, Xp, Yp = 64, 256, 256
+    spec = jax.ShapeDtypeStruct
+    args = (
+        spec((8,), jnp.float32), spec((B, Xp), jnp.uint8),
+        spec((B, Yp), jnp.uint8), spec((B, Yp), jnp.uint8),
+        spec((B,), jnp.int32), spec((B,), jnp.int32),
+    )
+    exp = jax.export.export(
+        jax.jit(lambda *a: P._forward(*a, n_ks)),
+        platforms=["cuda"],
+        disabled_checks=[
+            jax.export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(*args)
+    text = exp.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text and 'name = "pairhmm_forward"' in text
+
+
+@pytest.mark.parametrize("gap", [GAP, GAP_ONT], ids=["zero_ext", "finite_ext"])
+def test_kernel_matches_bruteforce_f64(gap):
+    """Against the O(XY) f64 reference DP of tests/test_pairhmm.py, with a
+    read that needs a 3-base insertion and one that needs a 4-base
+    deletion."""
+    from test_pairhmm import brute_force_forward
+
+    rng = np.random.default_rng(3)
+    a = rng.choice(list(b"ACGT"), 60).astype(np.uint8).tobytes()
+    reads = [
+        np.frombuffer(a[5:25] + b"TTT" + a[25:45], np.uint8),
+        np.frombuffer(a[10:30] + a[34:54], np.uint8),
+        np.frombuffer(a[0:30], np.uint8),
+    ]
+    quals = [np.full(len(r), 25, np.uint8) for r in reads]
+    out = pallas_forward([a] * 3, reads, quals, gap, interpret=True)
+    g = [max(float(x), NEG_INF) for x in gap]
+    ref = np.array([brute_force_forward(a, r, q, g) for r, q in zip(reads, quals)])
+    assert _rel(out, ref) < TOL, (out, ref)

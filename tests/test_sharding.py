@@ -1,7 +1,7 @@
 """Shard-count invariance + multi-device mesh tests (virtual 8-device CPU).
 
 The reference guarantees determinism via seeded subsampling and ordered maps
-(SURVEY.md §5); the TPU equivalent is shard-count-invariant output: the same
+(SURVEY.md §5); the batched equivalent is shard-count-invariant output: the same
 posteriors regardless of how the locus batch is split over devices.
 """
 

@@ -1,10 +1,10 @@
-"""varlociraptor-tpu: a TPU-native Bayesian variant-calling engine.
+"""varlociraptor-tpu: a Bayesian variant-calling engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 varlociraptor/varlociraptor (Rust reference): per-read allele-likelihood
 extraction (pair-HMM realignment), grammar-defined Bayesian event posteriors
 over allele-frequency grids, artifact/bias modeling, FDR-controlled
-filtration — batched over candidate loci and sharded over TPU device meshes.
+filtration — batched over candidate loci and sharded over device meshes.
 
 Layering (mirrors SURVEY.md L0-L8, redesigned tensor-first):
 

@@ -14,7 +14,7 @@ germline-het posterior (cnvs.rs:505-521).  Segmentation is Viterbi over a
 uniform keep/change transition matrix derived from ``--min-bayes-factor``
 (cnvs.rs:404-415).
 
-TPU-first shape: the emission matrix [T loci, K states] is computed as one
+Batched shape: the emission matrix [T loci, K states] is computed as one
 vectorized batch and the Viterbi recursion runs as a ``lax.scan`` over loci
 with O(K) work per step (the two-value transition structure needs only the
 per-state keep path and the global argmax).

@@ -512,7 +512,7 @@ def subsample_keep_mask(n: int, max_depth: int) -> np.ndarray:
     Uniform(0,1) draw per candidate in BTreeMap (qname-sorted) order.
     The RNG restarts per locus, so decisions are independent of
     batch/shard boundaries (required for shard-count-invariant output
-    on the TPU mesh) while matching the reference's kept sets exactly.
+    on a device mesh) while matching the reference's kept sets exactly.
     """
     if n <= max_depth:
         return np.ones(n, dtype=bool)
@@ -663,7 +663,7 @@ def extract_observations_begin(
     # Batched realignment: run the pileup once in record mode (host-only,
     # queuing every pair-HMM request), execute ONE padded device forward
     # per realigner, then replay. Cuts device dispatches per locus from
-    # O(reads) to O(1) — the per-call overhead dominates at TPU speeds.
+    # O(reads) to O(1) — the per-call overhead dominates on a device.
     realigners = []
     seen_r = set()
 

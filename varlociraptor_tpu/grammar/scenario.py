@@ -1,7 +1,7 @@
 """Scenario YAML schema.
 
 Mirrors the reference's ``grammar::Scenario``
-(``/root/reference/src/grammar/mod.rs:130-654``): samples (universe, ploidy
+(``src/grammar/mod.rs:130-654``): samples (universe, ploidy
 incl. per-contig/per-sex maps, contamination, inheritance, mutation rates,
 sex), events (formulas), reusable expressions, and species defaults
 (heterozygosity, rates, ploidy, variant-type fractions).
@@ -15,9 +15,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
-import yaml
-
 from . import formula as fm
+from .yamlsubset import load as _load_yaml
 
 DEFAULT_RESOLUTION = 0.01
 
@@ -280,11 +279,11 @@ class Scenario:
     @classmethod
     def from_path(cls, path):
         with open(path) as f:
-            return cls(yaml.safe_load(f))
+            return cls(_load_yaml(f.read()))
 
     @classmethod
     def from_yaml(cls, text: str):
-        return cls(yaml.safe_load(text))
+        return cls(_load_yaml(text))
 
     # ------------------------------------------------------------------
     def absent_formula(self):

@@ -2,7 +2,7 @@
 
 The reference reads CRAM transparently wherever a BAM path is accepted
 (rust-htslib, Cargo.toml:65). This module provides the same capability
-for the TPU-native stack: a self-contained CRAM 3.0 decoder producing
+for this stack: a self-contained CRAM 3.0 decoder producing
 ``BamRecord`` objects (plugged into ``BamReader`` via the magic sniff in
 ``open_alignment``/``BamReader``), plus an encoder used for round-trip
 tests and capture tooling.

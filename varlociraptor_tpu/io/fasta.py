@@ -1,6 +1,6 @@
 """Indexed FASTA access with per-contig LRU buffering.
 
-TPU-native replacement for the reference's ``reference::Buffer``
+Replacement for the reference's ``reference::Buffer``
 (``/root/reference/src/reference.rs:12-56``): lazy per-contig load into
 immutable numpy uint8 arrays with LRU eviction (default capacity 10 contigs,
 mirroring ``--reference-buffer-size``).  Sequences are uppercased at load time

@@ -1,7 +1,9 @@
 """ctypes bindings for the native host runtime (native/vlt_native.cpp).
 
-Lazily compiles the shared library on first use (g++ -O3, links zlib +
-pthread) and caches it next to the source; falls back to pure Python when no
+Compiles the shared library from the committed source on first use (g++
+-O3, links zlib + pthread) into ``native/libvlt_native.<hash>.so``, keyed
+on a hash of the source, so a checkout never loads a binary built from
+other code; falls back to pure Python (reported once on stderr) when no
 compiler is available. The native path parallelizes BGZF inflation — the
 dominant host cost when feeding pileups to the device.
 """
@@ -9,15 +11,16 @@ dominant host cost when feeding pileups to the device.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
 _SRC = _NATIVE_DIR / "vlt_native.cpp"
-_LIB = _NATIVE_DIR / "libvlt_native.so"
 
 _lib = None
 _tried = False
@@ -39,24 +42,21 @@ def _load():
         return _lib
     _tried = True
     try:
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
+        digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+        lib_path = _NATIVE_DIR / f"libvlt_native.{digest}.so"
+        if not lib_path.exists():
+            # build under a private name, then rename: concurrent first
+            # uses (test workers, preprocess workers) never load a
+            # half-written library
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
-                [
-                    "g++",
-                    "-O3",
-                    "-shared",
-                    "-fPIC",
-                    "-std=c++17",
-                    str(_SRC),
-                    "-o",
-                    str(_LIB),
-                    "-lz",
-                    "-lpthread",
-                ],
+                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC),
+                 "-o", str(tmp), "-lz", "-lpthread"],
                 check=True,
                 capture_output=True,
             )
-        lib = ctypes.CDLL(str(_LIB))
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
         lib.vlt_bgzf_index.restype = ctypes.c_int64
         lib.vlt_bgzf_inflate.restype = ctypes.c_int32
         lib.vlt_bam_scan.restype = ctypes.c_int64
@@ -67,7 +67,14 @@ def _load():
         lib.vlt_hybrid_hits_batch.restype = ctypes.c_int32
         lib.vlt_pairhmm_hop_batch.restype = ctypes.c_int32
         _lib = lib
-    except Exception:  # noqa: BLE001 - fall back to pure python
+    except (OSError, subprocess.CalledProcessError, AttributeError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        print(
+            f"varlociraptor_tpu: native library unavailable ({e}"
+            f"{': ' + detail.decode(errors='replace')[:500] if detail else ''}"
+            "); falling back to pure Python",
+            file=sys.stderr,
+        )
         _lib = None
     return _lib
 

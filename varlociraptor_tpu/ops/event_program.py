@@ -2,7 +2,7 @@
 
 The reference interprets a ``VAFTree`` per event at runtime with recursive
 adaptive integration (``/root/reference/src/grammar/vaftree.rs``,
-``.../modes/generic.rs:191-422``).  The TPU design compiles each event into a
+``.../modes/generic.rs:191-422``).  This design compiles each event into a
 flat *event program*: a sum over root-to-leaf paths ("branches"), where each
 branch assigns every sample one VAF spectrum (a discrete set or a range), a
 set of SNV-selector gates, and pairwise log2-fold-change constraints.  Branch

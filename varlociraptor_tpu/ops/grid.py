@@ -4,7 +4,7 @@ The fixed dense AF grid replaces the reference's adaptive integration
 (``/root/reference/src/utils/adaptive_integration.rs:25-141``): a per-sample
 grid containing the uniform resolution lattice plus every discrete VAF that
 appears in the sample's universe/events (so Set spectra are exact grid
-members).  Grid cost is trivially batched on TPU; the dense lattice dominates
+members).  Grid cost is trivially batched on the device; the dense lattice dominates
 the reference's <=13-point adaptive scheme in accuracy (SURVEY.md 7.1.2).
 """
 

@@ -6,7 +6,7 @@ single/contaminated sample models (``likelihood.rs:63-250``), vectorized over
 (locus, bias-combo, AF-grid-point, read).  The reference's LRU caches vanish:
 the dense grid *is* the memoization (SURVEY.md §7.1.4).
 
-TPU formulation: the per-read likelihood is AFFINE in the effective
+Formulation: the per-read likelihood is AFFINE in the effective
 alt-sampling weight
 
     w = psa * nu + kappa * (1 - psa),
@@ -145,27 +145,34 @@ def _logfold_enabled():
     """8-wide exponent/mantissa log folding — measured NEGATIVE result,
     default OFF everywhere (``VLT_LOGFOLD=1`` opts in).
 
-    Round-5 A/B on the real chip (8192-locus tumor-normal batch, max over
-    8 repeats): naive per-read log 70.1K loci/s; stride-8 fold 40.6K;
-    contiguous-halving fold 51.4K.  On CPU: naive 1138 vs fold 689.  The
-    VPU evaluates log cheaply enough that the bitcast/int-sum machinery
-    and the extra intermediates cost more than 7/8 of the logs saved —
-    the kernel is NOT log-transcendental-bound; it is bound by the
-    [L,B,U,D] elementwise traffic itself, which the fold does not shrink.
-    Kept for study parity (golden-sweep-certified identical calls)."""
+    On the accelerator it was first written for, and on the CPU (naive
+    1138 vs fold 689 loci/s, 8192-locus tumor-normal batch), the fold was
+    slower: the bitcast/int-sum machinery and the extra intermediates cost
+    more than 7/8 of the logs saved, so the kernel is bound by the
+    [L,B,U,D] elementwise traffic, which the fold does not shrink. Not
+    measured on the GPU. Kept for study parity (golden-sweep-certified
+    identical calls)."""
     import os
 
     return os.environ.get("VLT_LOGFOLD") in ("1", "true")
 
 
 def _ll_cells(a, r, m, c, w, mask):
+    """Masked read-sum of log(exp(c) * (w*a + (1-w)*r + m)); see
+    ``_ll_cells_body``. The named scope lets a profiler trace find the
+    fusions it becomes."""
+    with jax.named_scope("ll_cells"):
+        return _ll_cells_body(a, r, m, c, w, mask)
+
+
+def _ll_cells_body(a, r, m, c, w, mask):
     """Masked read-sum of log(exp(c) * (w*a + (1-w)*r + m)).
 
     a/r/m/c [..., D]; w broadcastable to them; mask [..., D] bool.
     Reduces the last (read) axis.
 
-    The kernel is log-throughput-bound on the VPU (round-3/5 roofline
-    studies), so the read axis is folded 8-wide before the log via an
+    With ``VLT_LOGFOLD=1`` the read axis is folded 8-wide before the log
+    via an
     exact exponent/mantissa split: ``t = mant * 2^(e-191)`` with
     ``mant in [1,2)`` (bitcast; the 2^64 pre-scale is a power of two —
     exact — and lifts f32 subnormals into normal range first).  The

@@ -16,7 +16,6 @@ import re
 import tempfile
 from pathlib import Path
 
-import yaml
 
 from .calling.call import CallOptions, call_generic
 from .calling.preprocess import PreprocessOptions, preprocess
@@ -34,6 +33,8 @@ class TestcaseError(Exception):
 class Testcase:
     def __init__(self, path):
         self.dir = Path(path)
+        import yaml  # testcase files use more of YAML than scenarios do
+
         with open(self.dir / "testcase.yaml") as f:
             self.doc = yaml.safe_load(f)
         self.version = str(self.doc.get("version", "0"))

@@ -1,6 +1,6 @@
 """Log-space probability substrate (numpy + jax twins).
 
-TPU-native re-implementation of the numerics the reference gets from the
+Re-implementation of the numerics the reference gets from the
 ``rust-bio`` crate (``bio::stats::LogProb``) plus the epsilon-capping helpers in
 the reference's ``src/utils/mod.rs:41`` (``NUMERICAL_EPSILON = 1e-3``,
 ``cap_numerical_overshoot``).
