@@ -236,19 +236,13 @@ def _timed_compute_only(engine, inputs, n_iter):
 def _device():
     """JAX's first device and the card's name and power limit; exits
     non-zero when there is no GPU."""
-    import jax
+    from varlociraptor_tpu.utils.device import require_gpu
 
-    dev = jax.devices()[0]
-    if dev.platform != "gpu":
-        raise SystemExit(f"no GPU: JAX's first device is {dev.platform!r}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    device, card = require_gpu()
     return {
-        "platform": dev.platform,
-        "device_kind": dev.device_kind,
-        "count": len(jax.devices()),
+        "platform": device["platform"],
+        "device_kind": device["kind"],
+        "count": device["count"],
         "card": card,
     }
 

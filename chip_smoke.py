@@ -13,14 +13,15 @@ germline and somatic SNVs and 1-10 bp indels, about 10,000 candidates.
  2. world    simulate the world (set-up time)
  3. preprocess both samples serially, so that the pair-HMM batches go to
              the card: once with the estimated alignment properties (finite
-             gap extensions -> the general kernel), and once for the indel
-             candidates with the reference's zero-extension gap params (the
-             exact kernel); both kernels must have run on the device
+             gap extensions), and once for the indel candidates with the
+             reference's zero-extension gap params; the device forward must
+             have run for both gap models
  4. call     ``call_generic`` under the tumor-normal scenario, window 4096
  5. FDR      somatic and germline ``control_fdr``; kept > 0 and planted-site
              sensitivity for SNVs and indels at or above the thresholds
- 6. kernels  each GPU pair-HMM kernel against the XLA wavefront and the
-             native f64 forward on one batch at the world's real widths
+ 6. kernels  the device pair-HMM forward (the XLA wavefront) against the
+             native f64 forward on one batch at the world's real widths,
+             for both gap models
  7. engine   the same observation files called and filtered through the
              CLI in a CPU-only child; PROB_*/AF within ENGINE_TOL; FDR keep
              sets identical but for records at the keep threshold
@@ -60,10 +61,10 @@ SENSITIVITY_MIN = {
     "germline_snv": 0.55,
     "germline_indel": 0.57,
 }
-# kernel vs reference: |d log-prob| / max(1, |ref|). The kernel is
-# linear-space f32 with per-column rescaling, the references log-space f32
-# (wavefront) and linear f64 (native); 5e-4 covers f32 rounding over a
-# ~400-step recurrence and is far below the gaps that separate alleles
+# device forward vs reference: |d log-prob| / max(1, |ref|). The device
+# forward is log-space f32, the reference linear-space f64; 5e-4 covers f32
+# rounding over a ~400-step recurrence and is far below the gaps that
+# separate alleles
 KERNEL_TOL = 5e-4
 # GPU vs CPU engine, |d| / max(1, |x|) on PROB_* (PHRED) and AF. XLA:GPU
 # and XLA:CPU differ in their f32 exp/log and in the order of their sums;
@@ -83,19 +84,12 @@ def log(msg):
 
 
 def device_phase():
-    import jax
+    from varlociraptor_tpu.utils.device import require_gpu
 
-    devs = jax.devices()
-    d = devs[0]
-    if d.platform != "gpu":
-        raise SystemExit(f"no GPU: JAX's first device is {d.platform!r}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(f"device: {d.device_kind} x{len(devs)} ({d.platform})")
-    log(f"card: {smi}")
-    return {"platform": d.platform, "kind": d.device_kind, "count": len(devs)}, smi
+    device, card = require_gpu()
+    log(f"device: {device['kind']} x{device['count']} ({device['platform']})")
+    log(f"card: {card}")
+    return device, card
 
 
 def world_phase(work, cfg=None):
@@ -109,7 +103,8 @@ def world_phase(work, cfg=None):
 
 
 def preprocess_phase(world, work):
-    """Returns (obs paths, estimated props, forward counts per path)."""
+    """Returns ({sample: observation file}, estimated properties, number
+    of candidates)."""
     import dataclasses
 
     from varlociraptor_tpu.calling.preprocess import PreprocessOptions, preprocess
@@ -159,8 +154,8 @@ def preprocess_phase(world, work):
         f"{time.perf_counter() - t0:.2f} s")
     counts = {"general": general, "exact": exact}
     log(f"pair-HMM forwards by path: {json.dumps(counts)}")
-    if general.get("kernel_general", 0) <= 0 or exact.get("kernel_exact", 0) <= 0:
-        raise AssertionError(f"a GPU pair-HMM kernel did not run: {counts}")
+    if general.get("wavefront", 0) <= 0 or exact.get("wavefront", 0) <= 0:
+        raise AssertionError(f"the device pair-HMM did not run: {counts}")
     return obs, props, n_cand
 
 
@@ -238,61 +233,41 @@ def parity_batch(world, n=2048, seed=7):
 
 
 def kernel_check(alleles, reads, quals, gap_params):
-    """Each GPU pair-HMM kernel against the XLA wavefront (full window) and
-    the native f64 forward on one batch; ``gap_params``: {name: GapParams}.
-    Returns {check: worst relative difference}; raises above KERNEL_TOL."""
-    import jax.numpy as jnp
+    """The device pair-HMM forward (``BatchedPairHMM.forward`` on the GPU:
+    the XLA wavefront) against the native f64 forward on one batch, full
+    window; ``gap_params``: {name: GapParams}. Returns {name: worst
+    relative difference}; raises above KERNEL_TOL."""
     import numpy as np
 
     from varlociraptor_tpu.io.native import pairhmm_forward_batch
-    from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM, NEG_INF, _forward_impl
-    from varlociraptor_tpu.ops.pallas_pairhmm import pallas_forward
+    from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM
 
-    n = len(alleles)
-    B = 1 << (n - 1).bit_length()
-    X = -(-max(map(len, alleles)) // 32) * 32
-    Y = -(-max(map(len, reads)) // 32) * 32
-    al = np.zeros((B, X), np.uint8)
-    rd = np.zeros((B, Y), np.uint8)
-    mis = np.full((B, Y), NEG_INF, np.float32)
-    alen = np.ones(B, np.int32)
-    rlen = np.ones(B, np.int32)
-    miscalls = []
-    for b in range(n):
-        al[b, : len(alleles[b])] = np.frombuffer(alleles[b], np.uint8)
-        alen[b] = len(alleles[b])
-        rd[b, : len(reads[b])] = reads[b]
-        rlen[b] = len(reads[b])
-        m = -quals[b].astype(np.float32) * np.float32(math.log(10.0) / 10.0)
-        mis[b, : len(m)] = m
-        miscalls.append(m)
-    log(f"kernels: batch of {n}, read {min(map(len, reads))}-"
+    miscalls = [
+        -q.astype(np.float32) * np.float32(math.log(10.0) / 10.0) for q in quals
+    ]
+    log(f"kernels: batch of {len(alleles)}, read {min(map(len, reads))}-"
         f"{max(map(len, reads))} bases, allele {min(map(len, alleles))}-"
         f"{max(map(len, alleles))} bases")
     worst = {}
     for name, gp in gap_params.items():
-        gap = BatchedPairHMM(gp).gap
+        hmm = BatchedPairHMM(gp)
+        if hmm.device_path() != "wavefront" or hmm._native_ok():
+            raise AssertionError("the device forward does not serve this batch")
         t0 = time.perf_counter()
-        got = pallas_forward(alleles, reads, quals, gap)
-        t_kernel = time.perf_counter() - t0
-        wave = np.asarray(_forward_impl(
-            jnp.asarray(al), jnp.asarray(alen), jnp.asarray(rd),
-            jnp.asarray(mis), jnp.asarray(rlen), jnp.asarray(gap),
-            jnp.asarray(np.full(B, -1, np.int32)), X, Y,
-        ), np.float64)[:n]
-        native = pairhmm_forward_batch(alleles, reads, miscalls, gap)
-        if native is None:
+        got = hmm.forward(alleles, reads, quals)
+        t_dev = time.perf_counter() - t0
+        ref = pairhmm_forward_batch(alleles, reads, miscalls, hmm.gap)
+        if ref is None:
             raise AssertionError("native library unavailable")
-        for ref_name, ref in (("wavefront", wave), ("native_f64", native)):
-            rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
-            k = int(np.argmax(rel))
-            worst[f"{name}_vs_{ref_name}"] = float(rel[k])
-            log(f"kernel {name} vs {ref_name}: worst rel {rel[k]:.3e} "
-                f"(item {k}: {got[k]:.6f} vs {ref[k]:.6f}); first call "
-                f"incl. compile {t_kernel:.2f} s")
+        rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+        k = int(np.argmax(rel))
+        worst[name] = float(rel[k])
+        log(f"device forward ({name} gaps) vs native f64: worst rel "
+            f"{rel[k]:.3e} (item {k}: {got[k]:.6f} vs {ref[k]:.6f}); first "
+            f"call incl. compile {t_dev:.2f} s")
     bad = {k: v for k, v in worst.items() if not v <= KERNEL_TOL}
     if bad:
-        raise AssertionError(f"kernel parity above {KERNEL_TOL}: {bad}")
+        raise AssertionError(f"device forward parity above {KERNEL_TOL}: {bad}")
     return worst
 
 

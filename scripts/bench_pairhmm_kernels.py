@@ -1,18 +1,18 @@
 #!/usr/bin/env python
-"""Pair-HMM on the GPU: the Pallas kernel vs the XLA wavefront vs the native
-C++ host forward, at the widths and batch sizes of chip_smoke.py's world.
+"""Pair-HMM on a GPU host: the XLA wavefront on the card vs the native C++
+host forward, at the widths and batch sizes of chip_smoke.py's world.
 
     python scripts/bench_pairhmm_kernels.py [--loci N] [--json PATH]
 
 1. Simulates chip_smoke's world and preprocesses the first N candidates of
    the tumor (serial, device_chunk 64) once per gap model, recording every
-   batch the pair-HMM receives: the estimated properties (finite extensions,
-   the general kernel) and the reference defaults on the indel candidates
-   (zero extensions, the exact kernel).
-2. Times each path on those batches, warm: the kernel and the wavefront as
-   device calls on pre-packed panels ending in block_until_ready, the host
-   forward as one threaded native call with the production bands. Reports
-   ms per batch and Gcells/s (cells = sum of allele x read lengths).
+   batch the pair-HMM receives: the estimated properties (finite
+   extensions) and the reference defaults on the indel candidates (zero
+   extensions).
+2. Times each path on those batches, warm: the wavefront as device calls on
+   pre-packed panels ending in block_until_ready, the host forward as one
+   threaded native call, both with the production bands. Reports ms per
+   batch and Gcells/s (cells = sum of allele x read lengths).
 3. Times preprocess ms/locus end to end with each path, on the first N
    candidates and on the indel candidates (estimated properties), in
    rotating order after a warm-up round (every shape compiled).
@@ -24,7 +24,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,51 +60,27 @@ def _time_batches(batches):
     import numpy as np
 
     from varlociraptor_tpu.io.native import pairhmm_forward_batch
-    from varlociraptor_tpu.ops.pairhmm import NEG_INF, _forward_impl, _round_up
-    from varlociraptor_tpu.ops.pallas_pairhmm import (
-        _forward,
-        coefficients,
-        ks_steps,
-        pack_batch,
-    )
+    from varlociraptor_tpu.ops.pairhmm import _forward_impl, _round_up, device_panels
 
     cells = sum(
         len(a) * len(r) for _g, al, rd, _q, _d in batches for a, r in zip(al, rd)
     )
-    kern, wave, nat = [], [], []
+    wave, nat = [], []
     for gap, alleles, reads, quals, dists in batches:
-        panels, _n = pack_batch(alleles, reads, quals)
-        coef = coefficients(gap)
-        n_ks = ks_steps(coef[6] > NEG_INF / 2, panels[0].shape[1])
-        kargs = [jnp.asarray(coef)] + [jnp.asarray(p) for p in panels]
-        kern.append((kargs, n_ks))
         n = len(alleles)
         B = max(8, 1 << (n - 1).bit_length())
         X = _round_up(max(map(len, alleles)), 32)
         Y = _round_up(max(map(len, reads)), 32)
-        al = np.zeros((B, X), np.uint8)
-        rd = np.zeros((B, Y), np.uint8)
-        mis = np.full((B, Y), NEG_INF, np.float32)
-        alen = np.ones(B, np.int32)
-        rlen = np.ones(B, np.int32)
-        me = np.full(B, -1, np.int32)
-        miscalls = []
-        for b in range(n):
-            al[b, : len(alleles[b])] = np.frombuffer(bytes(alleles[b]), np.uint8)
-            alen[b] = len(alleles[b])
-            rd[b, : len(reads[b])] = reads[b]
-            rlen[b] = len(reads[b])
-            m = -np.asarray(quals[b], np.float32) * np.float32(math.log(10) / 10)
-            mis[b, : len(m)] = m
-            miscalls.append(m)
-            if dists[b] is not None:
-                me[b] = dists[b]
+        al, alen, rd, rlen, mis, me = device_panels(
+            alleles, reads, quals, dists, B, X, Y
+        )
         wave.append(([jnp.asarray(x) for x in (al, alen, rd, mis, rlen, gap, me)],
                      X, Y))
+        miscalls = [
+            -np.asarray(q, np.float32) * np.float32(math.log(10) / 10)
+            for q in quals
+        ]
         nat.append((alleles, reads, miscalls, gap, dists))
-
-    def run_kernel():
-        return [_forward(*a, n_ks) for a, n_ks in kern]
 
     def run_wave():
         return [_forward_impl(*a, X, Y) for a, X, Y in wave]
@@ -115,8 +90,7 @@ def _time_batches(batches):
                 for a, r, m, g, d in nat]
 
     out = {}
-    for name, fn in (("kernel", run_kernel), ("wavefront", run_wave),
-                     ("native_host", run_native)):
+    for name, fn in (("wavefront", run_wave), ("native_host", run_native)):
         t0 = time.perf_counter()
         jax.block_until_ready(fn())
         first = time.perf_counter() - t0
@@ -137,13 +111,8 @@ def _time_batches(batches):
 def _preprocess_ms_per_locus(cand, world, props, path):
     """One preprocess of the tumor with one pair-HMM path; ms/locus."""
     from varlociraptor_tpu.calling.preprocess import PreprocessOptions, preprocess
-    from varlociraptor_tpu.ops.pairhmm import BatchedPairHMM
 
-    orig_path = BatchedPairHMM.device_path
-    if path == "wavefront":
-        BatchedPairHMM.device_path = lambda self: "wavefront"
-    if path == "native_host":
-        os.environ["VLT_NATIVE_PAIRHMM"] = "1"
+    os.environ["VLT_NATIVE_PAIRHMM"] = "1" if path == "native_host" else "0"
     try:
         t0 = time.perf_counter()
         n = preprocess(cand, world["tumor"], world["fa"],
@@ -153,11 +122,10 @@ def _preprocess_ms_per_locus(cand, world, props, path):
                                                  device_chunk=64))
         return (time.perf_counter() - t0) * 1e3 / n
     finally:
-        BatchedPairHMM.device_path = orig_path
         os.environ.pop("VLT_NATIVE_PAIRHMM", None)
 
 
-PATHS = ("kernel", "wavefront", "native_host")
+PATHS = ("wavefront", "native_host")
 
 
 def _preprocess_rounds(cand, world, props, reps):
@@ -168,9 +136,7 @@ def _preprocess_rounds(cand, world, props, reps):
         _preprocess_ms_per_locus(cand, world, props, path)
     runs = {p: [] for p in PATHS}
     for r in range(reps):
-        order = PATHS[r % 3:] + PATHS[: r % 3]
-        if r % 2:
-            order = order[::-1]
+        order = PATHS if r % 2 == 0 else PATHS[::-1]
         for path in order:
             runs[path].append(_preprocess_ms_per_locus(cand, world, props, path))
     import statistics
@@ -192,23 +158,16 @@ def main():
     import dataclasses
     import shutil
 
-    import jax
-
     from varlociraptor_tpu.calling.preprocess import PreprocessOptions, preprocess
     from varlociraptor_tpu.estimation.alignment_properties import GapParams, estimate
     from varlociraptor_tpu.io.bam import BamReader
     from varlociraptor_tpu.io.fasta import FastaBuffer
     from varlociraptor_tpu.simworld import simulate_world, write_candidates
+    from varlociraptor_tpu.utils.device import require_gpu
     from varlociraptor_tpu.utils.jaxcache import enable
 
     enable()
-    dev = jax.devices()[0]
-    if dev.platform != "gpu":
-        raise SystemExit(f"no GPU: JAX's first device is {dev.platform!r}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    device, card = require_gpu()
 
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -240,8 +199,7 @@ def main():
             options=PreprocessOptions(log_mode="silent", device_chunk=64))
 
     result = {
-        "device": {"platform": dev.platform, "kind": dev.device_kind,
-                   "count": len(jax.devices())},
+        "device": device,
         "card": card,
         "gap_params_estimated": dataclasses.asdict(props.gap_params),
         "general": _time_batches(_record_batches(pre(cand, props))),

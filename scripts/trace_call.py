@@ -17,7 +17,6 @@ window. Exits non-zero without a GPU; prints one JSON line.
 import argparse
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -130,16 +129,11 @@ def main():
     from varlociraptor_tpu.io.bam import BamReader
     from varlociraptor_tpu.io.fasta import FastaBuffer
     from varlociraptor_tpu.simworld import simulate_world, write_candidates
+    from varlociraptor_tpu.utils.device import require_gpu
     from varlociraptor_tpu.utils.jaxcache import enable
 
     enable()
-    dev = jax.devices()[0]
-    if dev.platform != "gpu":
-        raise SystemExit(f"no GPU: JAX's first device is {dev.platform!r}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    device, card = require_gpu()
     work = ROOT / ".trace_call"
     if work.exists():
         shutil.rmtree(work)
@@ -172,8 +166,7 @@ def main():
         traced = call(work / "calls_traced.vcf")
     fusions = scope_fusions(dump, "ll_cells")
     res = {
-        "device": {"platform": dev.platform, "kind": dev.device_kind,
-                   "count": len(jax.devices())},
+        "device": device,
         "card": card,
         "loci": n,
         "preprocess_8_cpu_workers_s": pre_s,

@@ -1,8 +1,10 @@
-"""The GPU pair-HMM kernel compiled for the card at the main path's widths.
+"""The device pair-HMM forward on the card at the main path's widths.
 
 Runs only on a GPU host (``gpu`` fixture); chip_smoke.py's kernel phase
 runs the same check (``chip_smoke.kernel_check``) on the world's reads.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -28,9 +30,7 @@ def _batch(n=4096, read_len=150, window=64, seed=0):
     return alleles, reads, quals
 
 
-def test_kernel_parity_at_real_widths(gpu):
-    import math
-
+def test_device_forward_parity_at_real_widths(gpu):
     import chip_smoke
     from varlociraptor_tpu.estimation.alignment_properties import GapParams
 

@@ -520,7 +520,13 @@ def ragged_panel(items, rows, width):
         flat = None
     if flat is None or len(flat) != lens.sum():  # not all 1-byte items
         flat = np.concatenate(
-            [np.asarray(x, np.uint8) for x in items] or [np.zeros(0, np.uint8)]
+            [
+                np.frombuffer(bytes(x), np.uint8)
+                if isinstance(x, (bytes, bytearray, memoryview))
+                else np.asarray(x, np.uint8)
+                for x in items
+            ]
+            or [np.zeros(0, np.uint8)]
         )
     panel = np.zeros((rows, width), np.uint8)
     # a row-major boolean mask visits the cells in concatenation order
@@ -559,7 +565,7 @@ _BASE_IDX = {65: 0, 67: 1, 71: 2, 84: 3}  # A C G T
 
 # work items this process sent down each forward path ("native", or one of
 # ``BatchedPairHMM.device_path``'s names): observability for runs that must
-# show which kernel served them
+# show which path served them
 forward_counts: Counter = Counter()
 
 
@@ -580,7 +586,7 @@ class BatchedPairHMM:
     def _native_ok(self):
         """Use the C++ linear-space forward when running on the CPU backend
         (the JAX wavefront kernel pays a large anti-diagonal overhead there);
-        the device kernels serve accelerators.  VLT_NATIVE_PAIRHMM=0/1
+        the XLA wavefronts serve accelerators.  VLT_NATIVE_PAIRHMM=0/1
         overrides."""
         if self._use_native is None:
             import os
@@ -599,27 +605,11 @@ class BatchedPairHMM:
         return self._use_native
 
     def device_path(self):
-        """Which device forward serves this gap model off the CPU:
-
-        - "kernel_exact" / "kernel_general": the Pallas GPU kernel
-          (ops/pallas_pairhmm.py) for exact mode with both extensions zero
-          (the reference defaults) or both finite (BAM-estimated);
-        - "hp_wavefront": homopolymer mode's positional gaps
-          (``_forward_hp_impl``);
-        - "wavefront": the XLA anti-diagonal scan, for every other backend
-          and gap model.
-        """
-        import jax
-
+        """The device forward that serves this gap model off the CPU:
+        "hp_wavefront" (homopolymer mode's positional gaps,
+        ``_forward_hp_impl``) or "wavefront" (``_forward_impl``)."""
         if self.mode == "homopolymer" and self.hop is not None:
             return "hp_wavefront"
-        ext_zero = [g <= NEG_INF / 2 for g in self.gap[2:4]]
-        if (
-            self.mode == "exact"
-            and jax.default_backend() == "gpu"
-            and ext_zero[0] == ext_zero[1]
-        ):
-            return "kernel_exact" if ext_zero[0] else "kernel_general"
         return "wavefront"
 
     def _init_gaps(self, gap_params):
@@ -693,13 +683,6 @@ class BatchedPairHMM:
             return self._forward_native(alleles, reads, quals, max_dists)
         path = self.device_path()
         forward_counts[path] += n_req
-        if path.startswith("kernel"):
-            # full-window forward: the band prunes mass the full forward
-            # dominates (parity vs the banded kernels is within the f32
-            # noise floor of the ratio normalization)
-            from .pallas_pairhmm import pallas_forward
-
-            return pallas_forward(alleles, reads, quals, self.gap)
         # pad the batch axis to a pow2 bucket so jit programs are reused
         # across pileups (unpadded batch sizes caused one XLA compile per
         # distinct request count)
@@ -709,7 +692,7 @@ class BatchedPairHMM:
         allele, alen, read, rlen, mis, medge = device_panels(
             alleles, reads, quals, max_dists, B, X, Y
         )
-        if self.mode == "homopolymer" and self.hop is not None:
+        if path == "hp_wavefront":
             io, ie = self._positional_gaps(
                 read, rlen, self.gap[0], self.gap[2],
                 self.hop.prob_seq_homopolymer, self.hop.prob_seq_extend_homopolymer,
