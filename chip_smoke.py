@@ -24,15 +24,16 @@ germline and somatic SNVs and 1-10 bp indels, about 10,000 candidates.
              for both gap models
  7. engine   the same observation files called and filtered through the
              CLI in a CPU-only child; PROB_*/AF within ENGINE_TOL; FDR keep
-             sets identical but for records at the keep threshold
+             sets identical but for records within FDR_BOUNDARY of the keep
+             threshold on both backends
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line. The last stdout line is one JSON object naming the device.
 
 ``--four-cards`` runs only the sharded path over a 1-D locus mesh of four
 cards (``run_sharded_compact`` and ``control_fdr_sharded``) and compares it
-with one card: byte-identical VCF against the single-device panels
-program, and equal FDR counts.
+with one card: calls and FDR-filtered calls byte-identical to the
+single-device panels program's.
 """
 
 from __future__ import annotations
@@ -66,16 +67,17 @@ SENSITIVITY_MIN = {
 # rounding over a ~400-step recurrence and is far below the gaps that
 # separate alleles
 KERNEL_TOL = 5e-4
-# GPU vs CPU engine, |d| / max(1, |x|) on PROB_* (PHRED) and AF. XLA:GPU
-# and XLA:CPU differ in their f32 exp/log and in the order of their sums;
-# events whose PHRED comes out of nearly cancelling terms move most. On the
-# smoke world 183 of 54,217 values differ by more than the 1e-4 the
-# multi-device comparison uses, the largest by 3.3e-3 (PROB_SOMATIC_NORMAL
-# 0.5622 vs 0.5655), so the card is held to 5e-3
-ENGINE_TOL = 5e-3
+# GPU vs CPU engine, |d| / max(1, |x|) on PROB_* (PHRED, 4 decimals) and
+# AF. Both run the engine in f32. Measured on this world (H100), against an
+# f64 copy of the engine on the same observations: the card within 2e-4,
+# the CPU within 4e-4, the two within 4e-4 of each other (4 units of the
+# VCF's last decimal). 5e-4 allows one unit more
+ENGINE_TOL = 5e-4
 # an FDR decision may differ between the backends only for a record whose
-# posterior error probability lies this close to the keep threshold
-FDR_BOUNDARY = 2e-3
+# posterior error probability lies this close to the keep threshold on
+# both: twice the largest per-record disagreement in error probability
+# measured on this world (5.1e-5 card vs CPU, 4.6e-5 CPU vs f64)
+FDR_BOUNDARY = 1e-4
 INDEL_WINDOW = 64  # PreprocessOptions.indel_window
 
 
@@ -353,8 +355,8 @@ def engine_phase(obs, calls, kept_gpu, work):
             log(f"engine: {name} FDR keep sets identical ({len(g)})")
             continue
         # decisions may differ only at the threshold: every record kept on
-        # one backend alone must sit within FDR_BOUNDARY of the largest
-        # error probability kept on either
+        # one backend alone must sit, on both backends, within FDR_BOUNDARY
+        # of the largest error probability kept on either
         pep = {
             side: {
                 pos: 1.0 - sum(10 ** (-vals[f"PROB_{e}"] / 10) for e in events)
@@ -364,7 +366,7 @@ def engine_phase(obs, calls, kept_gpu, work):
         }
         cut = max(max(pep["gpu"][p] for p in g), max(pep["cpu"][p] for p in c))
         far = {p: (pep["gpu"][p], pep["cpu"][p]) for p in g ^ c
-               if min(abs(pep["gpu"][p] - cut), abs(pep["cpu"][p] - cut))
+               if max(abs(pep["gpu"][p] - cut), abs(pep["cpu"][p] - cut))
                > FDR_BOUNDARY}
         log(f"engine: {name} FDR keep sets GPU {len(g)}, CPU {len(c)}; "
             f"differ at {sorted(g ^ c)} (threshold error probability {cut:.5f})")

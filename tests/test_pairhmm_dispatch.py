@@ -97,10 +97,15 @@ def test_device_panels_pad_ragged_batches(alens, rlens, rows):
 
 
 def test_ragged_panel_accepts_bytes_arrays_and_lists():
-    items = [b"AC", np.frombuffer(b"GTA", np.uint8), [67, 71]]
+    items = [b"AC", np.frombuffer(b"GTA", np.uint8), bytearray(b"CG")]
     panel, lens = ragged_panel(items, 4, 4)
     assert list(lens) == [2, 3, 2]
     assert [bytes(r) for r in panel] == [b"AC\0\0", b"GTA\0", b"CG\0\0", b"\0" * 4]
+    # wider items are refused, not cast
+    with pytest.raises(TypeError):
+        ragged_panel([np.array([30, 31], np.int64)], 1, 4)
+    with pytest.raises(TypeError):
+        ragged_panel([[67, 71]], 1, 4)
 
 
 def test_empty_read_gives_the_empty_result(monkeypatch):

@@ -44,7 +44,7 @@ def _workload(seed, n=40):
             rd = bytes(rng.choice([65, 67, 71, 84, 78], lr).astype(np.uint8))
         alleles.append(al)
         reads.append(np.frombuffer(rd, np.uint8))
-        quals.append(rng.integers(10, 45, lr))
+        quals.append(rng.integers(10, 45, lr).astype(np.uint8))
     return alleles, reads, quals
 
 

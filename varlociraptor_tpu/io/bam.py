@@ -927,13 +927,13 @@ for _i, _b in enumerate(SEQ_CODE_TO_ASCII):
 _CIGAR_OP_CODE = {c: i for i, c in enumerate(CIGAR_OPS)}
 
 
-def _pack_seq(seqs: np.ndarray) -> np.ndarray:
-    """[N, L] ASCII bases -> [N, ceil(L/2)] BAM 4-bit codes, high nibble
-    first (SAMv1 4.2)."""
-    codes = _ASCII_TO_SEQ_CODE[seqs]
-    if codes.shape[1] % 2:
-        codes = np.pad(codes, ((0, 0), (0, 1)))
-    return (codes[:, 0::2] << 4) | codes[:, 1::2]
+def _pack_seq(seq: np.ndarray) -> np.ndarray:
+    """[L] ASCII bases -> [ceil(L/2)] BAM 4-bit codes, high nibble first
+    (SAMv1 4.2)."""
+    codes = _ASCII_TO_SEQ_CODE[seq]
+    if len(codes) % 2:
+        codes = np.append(codes, np.uint8(0))
+    return (codes[0::2] << 4) | codes[1::2]
 
 
 def _encode_bgzf_blocks(data: bytes, block_size: int = 65000):
@@ -1053,7 +1053,7 @@ class BamWriter:
             struct.pack("<I", (int(l) << 4) | int(op)) for op, l in rec.cigar
         )
         l_seq = len(rec.seq)
-        packed = _pack_seq(np.asarray(rec.seq, dtype=np.uint8)[None, :])[0]
+        packed = _pack_seq(np.asarray(rec.seq, dtype=np.uint8))
         qual = rec.qual.astype(np.uint8).tobytes() if l_seq else b""
         tags = _encode_tags(rec.tags)
         end = rec.end_pos if len(rec.cigar) else rec.pos + 1
@@ -1081,41 +1081,6 @@ class BamWriter:
         start = len(self._body)
         self._body += struct.pack("<i", len(data)) + data
         self._rec_meta.append((tid, rec.pos, end, start, len(self._body)))
-
-    def write_batch(self, tid, pos, end, flag, mpos, tlen, qnames, cigars,
-                    seqs, quals, mapq=60):
-        """Append many tag-less records of one read length in order.
-
-        pos/end/flag/mpos/tlen: [N] ints (mate on the same contig); qnames:
-        N strings; cigars: N [(op, len)] lists; seqs/quals: [N, L] uint8
-        (ASCII bases, PHRED). Same bytes as ``write_record`` per record,
-        with the sequence packing done for the whole batch at once."""
-        seqs = np.asarray(seqs, dtype=np.uint8)
-        packed = _pack_seq(seqs)
-        quals = np.asarray(quals, dtype=np.uint8)
-        l_seq = seqs.shape[1]
-        body = self._body
-        meta = self._rec_meta
-        head = struct.Struct("<iiiBBHHHiiii")
-        for k in range(len(qnames)):
-            name = qnames[k].encode("latin1") + b"\x00"
-            cigar = cigars[k]
-            cig = struct.pack(
-                f"<{len(cigar)}I", *((int(l) << 4) | int(op) for op, l in cigar)
-            )
-            p, e = int(pos[k]), int(end[k])
-            size = 32 + len(name) + len(cig) + packed.shape[1] + l_seq
-            start = len(body)
-            body += head.pack(
-                size, tid, p, len(name), mapq, _reg2bin(p, max(e, p + 1)),
-                len(cigar), int(flag[k]), l_seq, tid, int(mpos[k]),
-                int(tlen[k]),
-            )
-            body += name
-            body += cig
-            body += packed[k].tobytes()
-            body += quals[k].tobytes()
-            meta.append((tid, p, e, start, len(body)))
 
     def close(self, index: bool | str = False):
         """Write the BAM; with index=True/'bai'/'csi' also write the

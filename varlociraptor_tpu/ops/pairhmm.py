@@ -514,20 +514,9 @@ def ragged_panel(items, rows, width):
     more host time than the device forward."""
     n = len(items)
     lens = np.fromiter(map(len, items), np.int64, n)
-    try:
-        flat = np.frombuffer(b"".join(items), np.uint8)
-    except TypeError:  # e.g. lists of ints
-        flat = None
-    if flat is None or len(flat) != lens.sum():  # not all 1-byte items
-        flat = np.concatenate(
-            [
-                np.frombuffer(bytes(x), np.uint8)
-                if isinstance(x, (bytes, bytearray, memoryview))
-                else np.asarray(x, np.uint8)
-                for x in items
-            ]
-            or [np.zeros(0, np.uint8)]
-        )
+    flat = np.frombuffer(b"".join(items), np.uint8)
+    if len(flat) != lens.sum():
+        raise TypeError("ragged_panel takes bytes-like or uint8 items")
     panel = np.zeros((rows, width), np.uint8)
     # a row-major boolean mask visits the cells in concatenation order
     panel[:n][np.arange(width) < lens[:, None]] = flat

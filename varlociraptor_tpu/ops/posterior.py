@@ -83,6 +83,12 @@ PROB_05 = math.log(0.5)
 AFD_TOP_K = 16
 AFD_BACKBONE_K = 16
 
+# slack of the range-bound and lattice tests below, relative to max(1, |x|).
+# f32 resolves ~1.2e-7; one backend rounds n*start + 1 once (an FMA), another
+# twice, and a bound that lands on a grid point must not move that point in
+# or out of the range on the last bit (a 1e-9 slack is below f32 resolution)
+BOUND_TOL = 1e-6
+
 
 def _ln_sub_exp(a, b):
     """log(exp(a) - exp(b)) for a >= b (clamped at -inf)."""
@@ -106,27 +112,31 @@ def observable_bounds(start, end, left_excl, right_excl, n_obs):
     """Device version of VAFRange::observable_min/max
     (formula.rs:1172-1232). All args broadcast together; n_obs float."""
     n = jnp.maximum(n_obs, 1.0)
-    possible = (end - start) * n_obs > 1.0
+    possible = (end - start) * n_obs > 1.0 + BOUND_TOL
     small_n = n_obs < 10.0
     raw = small_n | ~possible
 
     # observable_max
     c_max = n_obs * end
-    is_int_max = jnp.abs(c_max - jnp.round(c_max)) < 1e-9
+    tol_max = BOUND_TOL * jnp.maximum(1.0, jnp.abs(c_max))
+    is_int_max = jnp.abs(c_max - jnp.round(c_max)) < tol_max
     c_max = jnp.where(right_excl & is_int_max, c_max - 1.0, c_max)
-    c_max = jnp.floor(c_max + 1e-9)
+    c_max = jnp.floor(c_max + tol_max)
     amax = jnp.where(raw | (c_max == 0.0), end, c_max / n)
 
     # observable_min
     c_min = n_obs * start
-    adj_min = jnp.ceil(c_min - 1e-9) / n
-    is_int_min = jnp.abs(c_min - jnp.round(c_min)) < 1e-9
+    tol_min = BOUND_TOL * jnp.maximum(1.0, jnp.abs(c_min))
+    adj_min = jnp.ceil(c_min - tol_min) / n
+    is_int_min = jnp.abs(c_min - jnp.round(c_min)) < tol_min
     cand1 = (c_min + 1.0) / n
     cand0 = c_min / n
-    excl_min = jnp.where((cand1 <= 1.0) & (cand1 <= amax), cand1, cand0)
+    excl_min = jnp.where(
+        (cand1 <= 1.0 + BOUND_TOL) & (cand1 <= amax + BOUND_TOL), cand1, cand0
+    )
     amin = jnp.where(left_excl & is_int_min, excl_min, adj_min)
     amin = jnp.where(raw, start, amin)
-    amin = jnp.where(amin >= amax, start, amin)
+    amin = jnp.where(amin >= amax - BOUND_TOL, start, amin)
     return amin, amax
 
 
@@ -136,7 +146,7 @@ def range_weights(grid, start, end, left_excl, right_excl, n_obs):
     amin, amax = observable_bounds(start, end, left_excl, right_excl, n_obs)
     amin = amin[..., None]
     amax = amax[..., None]
-    inside = (grid >= amin - 1e-9) & (grid <= amax + 1e-9)
+    inside = (grid >= amin - BOUND_TOL) & (grid <= amax + BOUND_TOL)
     left_in = jnp.concatenate(
         [jnp.zeros_like(inside[..., :1]), inside[..., :-1]], axis=-1
     )

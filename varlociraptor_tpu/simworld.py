@@ -139,7 +139,7 @@ def _cigar(ref_of):
 
 def _library(rng, haps, cfg):
     """Simulate one sample's read pairs from its two haplotypes. Returns a
-    dict of per-read arrays (ref pos/end, flag, mate pos, tlen, pair id,
+    dict of per-read arrays (ref pos, flag, mate pos, tlen, pair id,
     cigar list, seq [N, L], qual [N, L])."""
     L = cfg.read_len
     n_pairs = int(cfg.length * cfg.coverage / (2 * L))
@@ -218,24 +218,27 @@ def _library(rng, haps, cfg):
     qual_pool = np.clip(rng.normal(36, 3, (256, L)), 10, 41).astype(np.uint8)
     pair = np.arange(n_reads) // 2
     return {
-        "pos": ref_pos, "end": ref_end, "flag": flag, "mpos": ref_pos[mate],
+        "pos": ref_pos, "flag": flag, "mpos": ref_pos[mate],
         "tlen": tlen, "pair": pair, "cigar": cigars, "seq": seq,
         "qual": qual_pool[pair % 256],
     }
 
 
 def _write_bam(path, lib, cfg):
-    from .io.bam import BamWriter
+    from .io.bam import BamRecord, BamWriter
 
     order = np.argsort(lib["pos"], kind="stable")
     w = BamWriter(path, [cfg.contig], [cfg.length])
-    w.write_batch(
-        0, lib["pos"][order], lib["end"][order], lib["flag"][order],
-        lib["mpos"][order], lib["tlen"][order],
-        [f"frag{k}" for k in lib["pair"][order].tolist()],
-        [lib["cigar"][k] for k in order.tolist()],
-        lib["seq"][order], lib["qual"][order],
-    )
+    seq, qual, cigar = lib["seq"], lib["qual"], lib["cigar"]
+    for k, pos, flag, mpos, tlen, pair in zip(
+        order.tolist(), *(lib[f][order].tolist()
+                          for f in ("pos", "flag", "mpos", "tlen", "pair"))
+    ):
+        w.write_record(BamRecord(
+            qname=f"frag{pair}", flag=flag, tid=0, pos=pos, mapq=60,
+            cigar=cigar[k], mtid=0, mpos=mpos, tlen=tlen, seq=seq[k],
+            qual=qual[k],
+        ))
     w.close(index=True)
 
 
